@@ -14,18 +14,14 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from tudocomp_tpu.device import ensure_compile_cache
+
+ensure_compile_cache()
+
 import jax
-
-cache_dir = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
-)
-jax.config.update("jax_compilation_cache_dir", cache_dir)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
 import jax.numpy as jnp
 
 from tudocomp_tpu.ops import huffman_jax as hj
-from tudocomp_tpu.ops.bitpack import pack_tokens_scanfree, pack_tokens
 
 
 def timeit(fn, *args, iters=5):
@@ -47,7 +43,8 @@ def main():
     payload = rng.zipf(1.3, nbytes).clip(0, 255).astype(np.uint8)
     blocks = jnp.asarray(payload.reshape(B, bs))
     n_valid = jnp.full((B,), bs, jnp.int32)
-    print(f"B={B} bs={bs} total={nbytes/1e6:.1f} MB backend={jax.default_backend()}")
+    dev = jax.devices()[0]
+    print(f"B={B} bs={bs} total={nbytes/1e6:.1f} MB device={dev.platform}/{dev.device_kind}")
 
     # stage 1: histogram
     f_hist = jax.jit(hj.block_histograms)
@@ -62,7 +59,7 @@ def main():
     lengths = jax.block_until_ready(f_len(hists))
 
     # stage 3: canonical codes
-    f_can = jax.jit(jax.vmap(hj.canonical_codes))
+    f_can = jax.jit(hj.canonical_codes_batch)
     dt = timeit(f_can, lengths)
     print(f"canonical       {dt*1e3:8.2f} ms  {nbytes/dt/1e9:8.2f} GB/s")
 

@@ -1,7 +1,7 @@
 // tdc_native: C++ host runtime for tudocomp-tpu.
 //
-// Holds the inherently sequential hot loops that belong on the host CPU in
-// the TPU-native architecture: LZ78/LZW trie parsing and chain decoding
+// Holds the inherently sequential hot loops that belong on the host CPU:
+// LZ78/LZW trie parsing and chain decoding
 // (capability mirror of compressors/LZ78Compressor.hpp,
 // compressors/LZWCompressor.hpp and compressors/lz78/* tries in the
 // reference — re-implemented from scratch with an open-addressing
@@ -16,10 +16,9 @@
 // decoders) are step-by-step semantic mirrors of their reference
 // counterparts — bit-exact output parity pins the algorithmic structure,
 // and same-language mirrors are the honest way to state that. Where a
-// TPU-parallel reformulation exists it is the default execution path
-// (ops/lcpcomp_jax.py: plcppeaks via orbit doubling, decode via pointer
-// doubling; ops/lz78_pallas.py: lockstep parses), and these host loops
-// remain as the CPU fallback and the small-input fast path.
+// data-parallel device reformulation exists (ops/lcpcomp_jax.py:
+// plcppeaks via orbit doubling, decode via pointer doubling) it is opt-in,
+// and these host loops are the default path.
 
 #include <algorithm>
 #include <cstdint>
@@ -98,7 +97,7 @@ struct HashTrie {
 //            2 prime (modulo a prime capacity)
 // The parse output is identical for every combination (the axes are the
 // reference's speed axes); probe counts differ and are reported so the
-// behavior is observable (VERDICT r2 item 9).
+// behavior is observable.
 struct ParamHashTrie {
     std::vector<uint64_t> keys;
     std::vector<uint32_t> vals;

@@ -142,8 +142,8 @@ def test_generators_library():
 
 
 def test_stats_include_memory_columns(tmp_path):
-    """--stats runs carry the malloc-override parity columns (VERDICT r2
-    item 7: per-phase memOff/memPeak on by default for stats output)."""
+    """--stats runs carry the malloc-override parity columns (per-phase
+    memOff/memPeak on by default for stats output)."""
     import json
     import subprocess
     import sys

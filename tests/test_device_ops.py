@@ -179,12 +179,21 @@ class TestDeviceTransforms:
             ).all()
 
 
+def _device_decode(payloads, block_size):
+    """Per-payload decode through the device kernel (interpret mode)."""
+    from tudocomp_tpu.ops.huffman_decode_pallas import decode_container
+    from tudocomp_tpu.parallel.blocks import frame_streams
+
+    out = []
+    for p in payloads:  # one container per payload: keeps lengths apart
+        out.append(decode_container(frame_streams([p], block_size), interpret=True))
+    return out
+
+
 class TestDeviceHuffmanDecode:
-    """Device-side decode: jump table + pointer doubling (ops/huffman_decode)."""
+    """Device-side decode: one lane per block (ops/huffman_decode_pallas)."""
 
     def test_matches_host_roundtrip(self):
-        from tudocomp_tpu.ops.huffman_decode import decode_payloads_device
-
         rng = np.random.default_rng(7)
         cases = [
             b"abracadabra banana mississippi " * 10,
@@ -198,7 +207,7 @@ class TestDeviceHuffmanDecode:
             "Unicode ไทย中文 русский".encode() * 7,
         ]
         payloads = [compress("encode(huff)", c, raw=True) for c in cases]
-        outs = decode_payloads_device(payloads, max_out=8192)
+        outs = _device_decode(payloads, 8192)
         for c, o in zip(cases, outs):
             assert o == c, c[:40]
 
@@ -207,31 +216,26 @@ class TestDeviceHuffmanDecode:
             blockwise_huffman_compress,
             blockwise_huffman_decompress,
         )
+        from tudocomp_tpu.ops.huffman_decode_pallas import decode_container
 
         rng = np.random.default_rng(8)
-        # small: the bit-serial decode kernel runs in interpret mode on CPU
         data = bytes(rng.zipf(1.4, 12000).clip(0, 255).astype(np.uint8))
         for shared in (False, True):
             c = blockwise_huffman_compress(data, block_size=1 << 12, shared_table=shared)
-            assert blockwise_huffman_decompress(c, device=True) == data
+            assert decode_container(c, interpret=True) == data
+            assert blockwise_huffman_decompress(c) == data
 
     def test_skewed_deep_codes(self):
         # exponential-ish histogram drives long codewords
-        from tudocomp_tpu.ops.huffman_decode import decode_payloads_device
-
         parts = [bytes([i]) * (1 << min(i, 14)) for i in range(20)]
         data = b"".join(parts)
         payload = compress("encode(huff)", data, raw=True)
-        (out,) = decode_payloads_device([payload], max_out=len(data) + 1)
+        (out,) = _device_decode([payload], len(data) + 1)
         assert out == data
 
 
 class TestBitserialDecode:
     def test_payload_parity_including_degenerates(self):
-        from tudocomp_tpu.ops.huffman_decode_pallas import (
-            decode_payloads_bitserial,
-        )
-
         rng = np.random.default_rng(5)
         cases = [
             b"bit serial lockstep decode " * 30,
@@ -242,6 +246,6 @@ class TestBitserialDecode:
             bytes(rng.choice(np.frombuffer(b"AC", np.uint8), 3000).tobytes()),
         ]
         payloads = [compress("encode(huff)", c, raw=True) for c in cases]
-        outs = decode_payloads_bitserial(payloads, max_out=4096)
+        outs = _device_decode(payloads, 4096)
         for c, o in zip(cases, outs):
             assert o == c, c[:40]

@@ -1,6 +1,6 @@
 """Hash-strategy axes (hasher x prober x size-manager) are real behavior.
 
-Mirror of util/Hash.hpp:13-305 (VERDICT r2 item 9): every combination
+Mirror of util/Hash.hpp:13-305: every combination
 parses to identical factors (the axes are the reference's speed axes, and
 test/lz78_trie_tests.cpp relies on trie-independence of the output) while
 probe counts measurably differ between configurations.

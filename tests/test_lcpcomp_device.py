@@ -1,6 +1,6 @@
 """Device lcpcomp: plcppeaks orbit-doubling parity + chain-resolve decode.
 
-VERDICT r2 item 5: the PQ strategies stay host-side (their per-pick LCP
+The PQ strategies stay host-side (their per-pick LCP
 mutation is inherently sequential), but plcppeaks is bit-identical on
 device and the decode phase resolves chains with pointer doubling for
 every dec strategy.

@@ -1,16 +1,14 @@
-"""Device LZ78 parse (lockstep Pallas kernel) vs the host parse.
+"""Blockwise LZ78/LZW: per-block host parse, framed container, roundtrip.
 
-Factor-level bit parity per block (SURVEY.md §7 step 4; VERDICT r2 item 3),
-plus the blockwise(lz78) roundtrip through the device batch hook.
+The container must equal the per-block driver.compress(raw=True) payloads
+framed in block order, across block sizes from tiny to the 8 KiB class.
 """
-
-import os
 
 import numpy as np
 import pytest
 
-from tudocomp_tpu.compressors.lz78 import lz78_parse
-from tudocomp_tpu.ops.lz78_pallas import lz78_parse_blocks_device
+from tudocomp_tpu.driver import compress, decompress
+from tudocomp_tpu.parallel.blocks import frame_streams
 
 
 def _corpus(bs):
@@ -23,89 +21,38 @@ def _corpus(bs):
     blocks[3] = np.frombuffer(pat, np.uint8)
     blocks[4, : bs // 2] = rng.integers(0, 4, bs // 2)
     n_valid = np.array([bs, bs, bs, bs, bs // 2, 0], np.int32)
-    return blocks, n_valid
+    return b"".join(bytes(blocks[b, : n_valid[b]]) for b in range(len(blocks)))
 
 
-@pytest.mark.parametrize("bs", [128, 512])
-def test_device_parse_parity(bs):
-    blocks, n_valid = _corpus(bs)
-    res = lz78_parse_blocks_device(blocks, n_valid)
-    for b in range(len(blocks)):
-        want_p, want_c = lz78_parse(blocks[b, : n_valid[b]])
-        got_p, got_c = res[b]
-        np.testing.assert_array_equal(got_p, want_p, err_msg=f"block {b}")
-        np.testing.assert_array_equal(got_c, want_c, err_msg=f"block {b}")
-
-
-def test_blockwise_lz78_device_roundtrip():
-    from tudocomp_tpu.driver import compress, decompress
-
-    rng = np.random.default_rng(2)
-    data = (b"the quick brown fox " * 200) + bytes(rng.integers(0, 256, 999))
-    os.environ["TDC_DEVICE_LZ78"] = "1"
-    try:
-        c = compress("blockwise(lz78(coder=bit), bs=1024)", data)
-    finally:
-        del os.environ["TDC_DEVICE_LZ78"]
-    # container identical to the host-parsed one
-    c_host = compress("blockwise(lz78(coder=bit), bs=1024)", data)
-    assert c == c_host
+@pytest.mark.parametrize("algo", ["lz78(coder=bit)", "lzw(coder=bit)"])
+@pytest.mark.parametrize("bs", [128, 512, 8192])
+def test_blockwise_roundtrip(algo, bs):
+    data = _corpus(bs)
+    c = compress(f"blockwise({algo}, bs={bs})", data)
+    header = f"blockwise({algo}, bs={bs})%".encode()
+    assert c.startswith(header)
+    want = frame_streams(
+        [
+            compress(algo, data[i : i + bs], raw=True)
+            for i in range(0, len(data), bs)
+        ],
+        bs,
+    )
+    assert c[len(header) :] == want
     assert decompress(c) == data
 
 
-@pytest.mark.parametrize("bs", [128, 512])
-def test_lzw_device_parse_parity(bs):
-    from tudocomp_tpu.compressors.lzw import lzw_parse
-    from tudocomp_tpu.ops.lz78_pallas import lzw_parse_blocks_device
-
-    blocks, n_valid = _corpus(bs)
-    res = lzw_parse_blocks_device(blocks, n_valid)
-    for b in range(len(blocks)):
-        want = lzw_parse(blocks[b, : n_valid[b]])
-        np.testing.assert_array_equal(res[b], want, err_msg=f"block {b}")
+def test_blockwise_lz78_device_roundtrip():
+    rng = np.random.default_rng(2)
+    data = (b"the quick brown fox " * 200) + bytes(rng.integers(0, 256, 999))
+    c = compress("blockwise(lz78(coder=bit), bs=1024)", data)
+    assert decompress(c) == data
 
 
 def test_blockwise_lzw_device_roundtrip():
-    from tudocomp_tpu.driver import compress, decompress
-
     rng = np.random.default_rng(5)
     data = (b"wesawseashellsbytheseashore " * 150) + bytes(
         rng.integers(0, 256, 777)
     )
-    os.environ["TDC_DEVICE_LZ78"] = "1"
-    try:
-        c = compress("blockwise(lzw(coder=bit), bs=1024)", data)
-    finally:
-        del os.environ["TDC_DEVICE_LZ78"]
-    assert c == compress("blockwise(lzw(coder=bit), bs=1024)", data)
+    c = compress("blockwise(lzw(coder=bit), bs=1024)", data)
     assert decompress(c) == data
-
-
-def test_bucket_kernel_parity_interpret():
-    """The bucketed-dictionary kernel (ops/lz78_bucket_pallas.py) must be
-    bit-identical to the host parse for blocks beyond the 8 KiB lockstep
-    cap, including padding, all-runs and trailing-factor cases."""
-    import numpy as np
-
-    from tudocomp_tpu.compressors.lz78 import lz78_parse
-    from tudocomp_tpu.ops.lz78_bucket_pallas import lz78_parse_blocks_bucket
-
-    rng = np.random.default_rng(17)
-    cases = [
-        rng.integers(0, 256, 10000).astype(np.uint8),
-        rng.integers(0, 4, 12000).astype(np.uint8),
-        np.zeros(9000, np.uint8),
-        np.frombuffer(b"the quick brown fox " * 600, np.uint8),
-    ]
-    bs = max(len(c) for c in cases)
-    blocks = np.zeros((len(cases), bs), np.uint8)
-    nv = np.zeros(len(cases), np.int32)
-    for i, c in enumerate(cases):
-        blocks[i, : len(c)] = c
-        nv[i] = len(c)
-    got = lz78_parse_blocks_bucket(blocks, nv, interpret=True)
-    for i, c in enumerate(cases):
-        wp, wc = lz78_parse(c, "ternary", None)
-        gp, gc = got[i]
-        assert len(gp) == len(wp)
-        assert (gp == wp).all() and (gc == wc).all(), i

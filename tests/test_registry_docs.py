@@ -1,6 +1,6 @@
 """Registry self-description: --list docs + Meta-driven static enumeration.
 
-Cross-checks (VERDICT r2 item 8) that the Meta-driven machinery
+Cross-checks that the Meta-driven machinery
 (Registry.generate_doc_string / all_algorithms_with_static, mirroring
 include/tudocomp/Registry.hpp:40-75 and generate_doc_string) covers the
 curated conformance matrix (registry_config.compressor_matrix), so the two

@@ -133,7 +133,7 @@ def test_sa_jax_matches():
 
 
 def test_sa_staged_device_matches():
-    """suffix_array_device (staged Larsson-Sadakane, the TPU default) must
+    """suffix_array_device (staged Larsson-Sadakane, the device default) must
     match the naive SA on corner cases and randoms, return a consistent
     ISA, and survive the compact-stage cascade (sizes > 8192 engage it)."""
     pytest.importorskip("jax")

@@ -1,7 +1,7 @@
-"""tudocomp-tpu: a TPU-native lossless compression framework.
+"""tudocomp-tpu: an accelerator-native lossless compression framework.
 
 A from-scratch rebuild of the capabilities of tudocomp (the TU Dortmund
-Compression Framework, reference at /root/reference) designed TPU-first:
+Compression Framework) designed for an accelerator first:
 compressors are array programs (factorize on device, entropy bit-pack via
 parallel prefix-sum kernels) with block-parallel data-parallel scaling over
 JAX device meshes, while the modular compressor/coder pipeline, the

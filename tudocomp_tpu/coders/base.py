@@ -3,7 +3,7 @@
 Mirror of include/tudocomp/Coder.hpp:14-147: the default `encode(v, Range)`
 writes v-min in bits_for(max-min) bits; `encode(v, BitRange)` writes one bit.
 Subclasses override per-range behavior. Vectorized `encode_array` /
-`decode_array` variants are the TPU-native hot path: whole token streams are
+`decode_array` variants are the vectorized hot path: whole token streams are
 encoded in one call.
 """
 

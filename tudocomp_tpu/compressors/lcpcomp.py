@@ -513,16 +513,16 @@ class LCPCompressor(Compressor):
                     "TDC_DEVICE_LCPCOMP"
                 ) == "1" and use_device("TDC_DEVICE_LCPCOMP", n=len(sa)):
                     # device orbit-doubling walk, bit-identical factors;
-                    # OPT-IN (TDC_DEVICE_LCPCOMP=1): measured 4.85 s vs
-                    # 0.04 s host at 4 MiB english on v5e (the doubling
-                    # gathers, like the lzss candidates walk, lose badly).
-                    # The PQ strategies (arrays/heap/max_lcp) mutate LCP
-                    # after every pick and stay host-side by design
+                    # OPT-IN (TDC_DEVICE_LCPCOMP=1) until its GPU time is
+                    # measured against the host pass. The PQ strategies
+                    # (arrays/heap/max_lcp) mutate LCP after every pick and
+                    # stay host-side by design
                     from ..ops.lcpcomp_jax import plcppeaks_factorize_device
 
-                    p, s, l = plcppeaks_factorize_device(
-                        sa, isa, plcp, threshold
-                    )
+                    with StatPhase("device lcpcomp factorize"):
+                        p, s, l = plcppeaks_factorize_device(
+                            sa, isa, plcp, threshold
+                        )
                     factors = lzss_common.Factors(p, s, l)
                 else:
                     factors = plcppeaks_factorize(sa, isa, plcp, threshold)
@@ -614,13 +614,12 @@ class LCPCompressor(Compressor):
                 # the same bytes (the dec axis is a pointer-machine
                 # time/space trade); pointer doubling collapses all
                 # reference chains in ceil(log2 n)+1 gather rounds.
-                # Opt-in (TDC_DEVICE_LCPCOMP=1), like TDC_DEVICE_HUFF: the
-                # gather rounds are the same random-gather pattern that
-                # measured ~0.8 MB/s for device Huffman decode on v5e,
-                # and this path has no through-hardware benchmark yet.
+                # Opt-in (TDC_DEVICE_LCPCOMP=1) until its GPU time is
+                # measured against the native decoders.
                 from ..ops.lcpcomp_jax import resolve_factors_device
 
-                buffer = resolve_factors_device(buffer, tgt, srcs, lens)
+                with StatPhase("device lcpcomp decode"):
+                    buffer = resolve_factors_device(buffer, tgt, srcs, lens)
                 undec = np.flatnonzero(buffer[:cursor] == 0)
                 assert (
                     len(undec) == 0 or (len(undec) == 1 and undec[0] + 1 == n)

@@ -15,7 +15,6 @@ the bitstream. Entropy coding is vectorized through the token-stream path.
 
 from __future__ import annotations
 
-import os
 
 import numpy as np
 
@@ -208,37 +207,6 @@ class LZ78Compressor(Compressor):
             )
             phase.log("factor_count", len(parents))
             out.write(self._encode_factors(parents, chars))
-
-    def compress_block_batch(self, blocks: np.ndarray, n_valid: np.ndarray):
-        """Device batch hook for the blockwise runtime: parse all blocks in
-        one lockstep Pallas call (ops/lz78_pallas.py), encode per block.
-        Returns None when the device path does not apply."""
-        from ..device import use_device
-
-        B, bs = blocks.shape
-        if not use_device("TDC_DEVICE_LZ78"):
-            return None
-        if bs <= 8192:
-            # 128-block lockstep content-scan dictionary (fast, VMEM-bound
-            # block cap)
-            from ..ops.lz78_pallas import lz78_parse_blocks_device as parse
-        elif bs <= 262144 and os.environ.get("TDC_DEVICE_LZ78") == "1":
-            # bucketed VMEM hash dictionary: lifts the block cap to
-            # 256 KiB (near-whole-text ratio) but parses one block at a
-            # time — measured ~1.6 MB/s on v5e vs ~8 MB/s host (PERF.md),
-            # so it stays OPT-IN; it exists for device-resident flows and
-            # as the scalable-dictionary design point
-            from ..ops.lz78_bucket_pallas import (
-                lz78_parse_blocks_bucket as parse,
-            )
-        else:
-            return None
-
-        with StatPhase("device lz78 parse") as ph:
-            ph.log("blocks", B)
-            factors = parse(blocks, n_valid)
-        with StatPhase("encode"):
-            return [self._encode_factors(p, c) for p, c in factors]
 
     def decompress(self, inp: Input, out: Output) -> None:
         coder_cls, coder_env = self.env.algorithm_for_option("coder")

@@ -8,9 +8,8 @@ trie choice never affects the bitstream, only parse speed — a fact the
 reference documents and its trie tests rely on (test/lz78_trie_tests.cpp
 runs every trie against identical expected factor lists).
 
-In the TPU rebuild the parse runs in the C++ host runtime
-(native/tdc_native.cpp) or the JAX block-parallel path, both of which use a
-single open-addressed (parent,char)->id hash trie — the analogue of
+In this rebuild the parse runs in the C++ host runtime
+(native/tdc_native.cpp), which uses a single open-addressed (parent,char)->id hash trie — the analogue of
 HashTrie+squeeze_node (lz78/squeeze_node.hpp packed u40 keys). The registry
 still exposes the full axis for id-string compatibility: every trie id the
 reference accepts parses and selects here, all mapping to the same parse

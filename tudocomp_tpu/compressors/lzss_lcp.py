@@ -38,13 +38,12 @@ def lcp_factorize(sa, isa, lcp, threshold: int) -> lzss_common.Factors:
     ):
         # device factorization: parallel ANSV + orbit-doubling greedy parse
         # (ops/lzss_jax.py); bit-identical factors to the native path.
-        # OPT-IN (TDC_DEVICE_LZSS=1): measured on v5e
-        # (etc/probe_crossover.py, host-fetch syncs) the gather-bound
-        # doubling walk ran 8.2 s vs 51 ms native at 1 MiB — the O(n) ANSV
-        # host pass wins by orders of magnitude at every size.
+        # OPT-IN (TDC_DEVICE_LZSS=1) until its GPU time is measured against
+        # the O(n) native ANSV pass.
         from ..ops.lzss_jax import lzss_lcp_factorize_device
 
-        pos, src, ln = lzss_lcp_factorize_device(sa, isa, lcp, threshold)
+        with StatPhase("device lzss factorize"):
+            pos, src, ln = lzss_lcp_factorize_device(sa, isa, lcp, threshold)
         return lzss_common.Factors(pos, src, ln)
     lib = native.get_lib()
     if lib is not None and n:

@@ -147,23 +147,6 @@ class LZWCompressor(Compressor):
             phase.log("factor_count", len(codes))
             out.write(self._encode_codes(codes))
 
-    def compress_block_batch(self, blocks: np.ndarray, n_valid: np.ndarray):
-        """Device batch hook for the blockwise runtime (lockstep Pallas
-        parse, ops/lz78_pallas.py); None when the device path does not
-        apply."""
-        from ..device import use_device
-
-        B, bs = blocks.shape
-        if bs > 8192 or not use_device("TDC_DEVICE_LZ78"):
-            return None
-        from ..ops.lz78_pallas import lzw_parse_blocks_device
-
-        with StatPhase("device lzw parse") as ph:
-            ph.log("blocks", B)
-            code_lists = lzw_parse_blocks_device(blocks, n_valid)
-        with StatPhase("encode"):
-            return [self._encode_codes(c) for c in code_lists]
-
     def decompress(self, inp: Input, out: Output) -> None:
         coder_cls, coder_env = self.env.algorithm_for_option("coder")
         r = BitReader(inp.as_bytes())

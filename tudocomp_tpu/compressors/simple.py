@@ -46,25 +46,25 @@ class NoopCompressor(Compressor):
 def rle_encode(data: np.ndarray, offset: int = 0) -> np.ndarray:
     """Vectorized RLE matching rle_encode (RunLengthEncoder.hpp:16-32).
 
-    The run decomposition runs on device when a TPU backend is present
-    (ops/transforms.rle_runs_device); vbyte serialization stays host-side.
+    The run decomposition runs on device on an accelerator from 16 MiB
+    (ops/transforms.rle_runs_device; the gate's GPU crossover is not
+    measured yet); vbyte serialization stays host-side.
     """
     n = len(data)
     if n == 0:
         return data
     from ..device import use_device
 
-    # crossover measured on v5e (PERF.md): host run-detection wins at
-    # 4 MiB (36 ms vs 116 ms), device wins at 16 MiB (408 ms vs 691 ms)
     if use_device("TDC_DEVICE_RLE", min_n=1 << 24, n=n):
         import jax.numpy as jnp
 
         from ..ops.transforms import rle_runs_device
 
-        dchars, dlens, n_runs = rle_runs_device(jnp.asarray(data))
-        n_runs = int(n_runs)
-        chars = np.asarray(dchars)[:n_runs]
-        run_lens = np.asarray(dlens)[:n_runs].astype(np.int64)
+        with StatPhase("device RLE"):
+            dchars, dlens, n_runs = rle_runs_device(jnp.asarray(data))
+            n_runs = int(n_runs)
+            chars = np.asarray(dchars)[:n_runs]
+            run_lens = np.asarray(dlens)[:n_runs].astype(np.int64)
         run_starts = np.cumsum(run_lens) - run_lens
     else:
         change = np.empty(n, dtype=bool)
@@ -176,7 +176,8 @@ def mtf_encode(data: np.ndarray) -> np.ndarray:
         chunk = 4096
         pad = (-n) % chunk
         padded = np.pad(data, (0, pad)) if pad else data
-        out = np.asarray(mtf_encode_device(jnp.asarray(padded), chunk))
+        with StatPhase("device MTF"):
+            out = np.asarray(mtf_encode_device(jnp.asarray(padded), chunk))
         return out[:n]
     lib = native.get_lib()
     if lib is not None and n:

@@ -12,6 +12,7 @@ from __future__ import annotations
 import logging
 from typing import Optional
 
+from .device import ensure_compile_cache
 from .io.inout import Input, Output
 from .registry import REGISTRY, Registry
 
@@ -24,6 +25,7 @@ def compress(
     registry: Optional[Registry] = None,
     raw: bool = False,
 ) -> bytes:
+    ensure_compile_cache()
     reg = registry or REGISTRY
     av = reg.parse_algorithm_id(id_string, "compressor")
     comp = reg.select_algorithm(av, "compressor")
@@ -51,6 +53,7 @@ def decompress(
     id_string: Optional[str] = None,
     raw: bool = False,
 ) -> bytes:
+    ensure_compile_cache()
     reg = registry or REGISTRY
     inp = Input(data)
     if not raw:

@@ -1,6 +1,6 @@
 """Device-side bit packing: (value, nbits) token arrays -> u32 word arena.
 
-This is the TPU twin of the host BitWriter pack path (io/bitio.py), the
+This is the device twin of the host BitWriter pack path (io/bitio.py), the
 kernel every entropy back-end funnels into (SURVEY.md §7 step 3): per-token
 exclusive prefix sum of widths, then each token scatters its bits into at
 most two u32 words. Contributions within a word touch disjoint bit ranges,
@@ -75,53 +75,6 @@ def pack_tokens(values: jnp.ndarray, nbits: jnp.ndarray, n_words: int):
     words = jnp.zeros(n_words, dtype=jnp.uint32)
     words = words.at[w0].add(hi, mode="drop")
     words = words.at[w0 + 1].add(lo, mode="drop")
-    return words, total_bits
-
-
-def pack_tokens_scanfree(values: jnp.ndarray, nbits: jnp.ndarray, n_words: int):
-    """Scatter-free pack: XOR prefix scans + per-word segment lookups.
-
-    Equivalent to pack_tokens but maps onto the TPU VPU without scatters:
-    within a word all contributions have disjoint bits, so XOR == OR == sum,
-    and a cumulative-XOR scan lets each output word w read its value as
-    scan[last token touching w] ^ scan[last token before w]. Token start
-    offsets are monotone, so those indices come from searchsorted against
-    the regular 32-bit word grid.
-    """
-    n = values.shape[0]
-    if n == 0:
-        return jnp.zeros(n_words, jnp.uint32), jnp.int32(0)
-    nbits = nbits.astype(jnp.int32)
-    vals = _mask_values(values, nbits)
-    ends = jnp.cumsum(nbits)
-    offs = ends - nbits
-    total_bits = ends[-1]
-
-    sh_end = (offs & 31) + nbits
-    hi = _shl(vals, 32 - sh_end)
-    hi = jnp.where(sh_end <= 32, hi, _shr(vals, sh_end - 32))
-    lo = jnp.where(sh_end > 32, _shl(vals, 64 - sh_end), jnp.uint32(0))
-    live = nbits > 0
-    hi = jnp.where(live, hi, jnp.uint32(0))
-    lo = jnp.where(live, lo, jnp.uint32(0))
-
-    x_hi = jax.lax.associative_scan(jnp.bitwise_xor, hi)
-    x_lo = jax.lax.associative_scan(jnp.bitwise_xor, lo)
-
-    # b[w] = index of last token with offs < 32w (i.e. w0 <= w-1); -1 if none
-    grid = jnp.arange(n_words + 1, dtype=jnp.int32) * 32
-    b = jnp.searchsorted(offs, grid, side="left").astype(jnp.int32) - 1
-
-    def seg(x, lo_idx, hi_idx):
-        a = jnp.where(hi_idx >= 0, x[jnp.maximum(hi_idx, 0)], jnp.uint32(0))
-        c = jnp.where(lo_idx >= 0, x[jnp.maximum(lo_idx, 0)], jnp.uint32(0))
-        return a ^ c
-
-    # word w: hi-parts from tokens with w0 == w  -> indices (b[w], b[w+1]]
-    #         lo-parts from tokens with w0 == w-1 -> indices (b[w-1], b[w]]
-    words = seg(x_hi, b[:-1], b[1:])
-    b_prev = jnp.concatenate([jnp.full(1, -1, jnp.int32), b[:-2]])
-    words = words ^ seg(x_lo, b_prev, b[:-1])
     return words, total_bits
 
 

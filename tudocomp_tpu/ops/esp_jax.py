@@ -1,4 +1,4 @@
-"""Device (TPU) ESP grammar construction.
+"""Device ESP grammar construction.
 
 Staged all-device ESP parsing: each round of the edit-sensitive parse
 (EspContextImpl.hpp:14-165 in the reference) is one jitted array program
@@ -9,8 +9,7 @@ suffix array, ds/suffix_array.py). Output is bit-identical to the host
 vectorized specification in ``ops/esp_vec.py`` (whose numpy twin is tested
 exhaustively against ``esp_round_python``) and cross-checked by tests.
 
-Per-round passes (all elementwise / cumsum / lax.sort — TPU-friendly, no
-gather chains):
+Per-round passes (all elementwise / cumsum / lax.sort, no gather chains):
 
 1. segmentation into run (type-1) and non-repeating (type-2) metablocks;
 2. closed-form eager_mb13 block starts for runs and type-3 prefixes;
@@ -23,8 +22,8 @@ gather chains):
 5. GrammarRules naming by sorted first-appearance rank (two-level:
    3-blocks' outer rules key on the inner rule's group id).
 
-Everything is int32 (no x64 on TPU): pair keys use 2-operand lax.sort
-instead of u64 packing.
+Everything is int32 (JAX runs without x64): pair keys use 2-operand
+lax.sort instead of u64 packing.
 """
 
 from __future__ import annotations
@@ -185,10 +184,10 @@ def _sim_window(blk_len, blk_typ, navail):
         jnp.zeros(W, jnp.int32),
     )
     if W <= 16:
-        # partially unrolled scan: a batched while_loop costs ~3 ms *per
-        # iteration* in dispatch/mask overhead on TPU, while a full 3*W
-        # unroll explodes XLA compile time — scan(unroll=8) fuses 8 steps
-        # per dispatch at 1/6 of the full-unroll graph. Extra steps after
+        # partially unrolled scan: a batched while_loop pays dispatch and
+        # mask overhead per iteration, while a full 3*W unroll explodes
+        # XLA compile time — scan(unroll=8) fuses 8 steps per dispatch at
+        # 1/6 of the full-unroll graph. Extra steps after
         # a lane drains are no-ops (state is stable).
         def sbody(st, _):
             return body(st), None
@@ -509,9 +508,6 @@ def _round_jit_batch(size: int, nw_cap: int):
 def esp_round_device_batch(srcs, alphabets):
     """Batched single-round entry (testing): many same-padded-size strings
     in one dispatch. Returns a list of (nxt, rl, rr) / None per input."""
-    from ..device import ensure_compile_cache
-
-    ensure_compile_cache()
     size = 8
     mx = max(len(s) for s in srcs)
     while size < mx:
@@ -545,9 +541,6 @@ def esp_round_device(src: np.ndarray, alphabet: int):
 
     Returns (nxt, rl, rr) or None if the round hit the window-fallback.
     """
-    from ..device import ensure_compile_cache
-
-    ensure_compile_cache()
     m = len(src)
     size = 8
     while size < m:
@@ -574,13 +567,12 @@ def esp_grammar_device(data, threshold: int = 1 << 15, devices=None):
     to the host path entirely if any device round trips its window cap.
     """
     from ..compressors.esp import esp_round, generate_grammar
-    from ..device import ensure_compile_cache
+    from ..stats.phase import StatPhase
 
     data = np.asarray(data, np.uint8)
     n = len(data)
     if n <= 1 or n <= 2 * threshold:
         return generate_grammar(data)
-    ensure_compile_cache()
 
     size = 1
     while size < n:
@@ -602,7 +594,11 @@ def esp_grammar_device(data, threshold: int = 1 << 15, devices=None):
     flags = np.asarray(jnp.stack([s[3] for s in stage_out]))
     nbs = np.asarray(jnp.stack([s[4] for s in stage_out]))
     if flags.any():
-        return generate_grammar(data)
+        # a round overflowed its window cap: the whole input re-runs on the
+        # host; the counter makes the fallback visible to callers and tests
+        with StatPhase("esp host fallback") as ph:
+            ph.log("window_overflow_rounds", int(flags.sum()))
+            return generate_grammar(data)
 
     all_rules = []
     slp_counter = 256

@@ -1,37 +1,32 @@
-"""Bit-serial lockstep device Huffman decode (Pallas TPU).
+"""Device canonical-Huffman decode of a blockwise container (Pallas/Triton).
 
-Replaces the jump-table + pointer-doubling decode (ops/huffman_decode.py,
-~0.8 MB/s on v5e: O(n log n) random global gathers are structurally wrong
-for the TPU memory system). Entropy decode is sequential per stream, so
-the parallelism axis is BLOCKS: 1024 independent per-block streams ride
-the (8, 128) lane grid, and every lane consumes exactly ONE BIT per step
-— all lanes therefore read the SAME word column index each step, which
-turns the per-lane bitstream fetch into a regular VMEM slice (no gather
-anywhere in the hot loop; the LZ78 lockstep kernel proves this shape,
-ops/lz78_pallas.py).
+Entropy decode is sequential within a stream, so the parallel axis is the
+BLOCK: one GPU thread ("lane") decodes one block payload from start to end.
+Every lane walks its own bit position through the container, so each step
+is a handful of per-lane gathers (the 32-bit peek window and the lane's
+canonical tables), which the GPU serves from L1/L2.
 
-Per bit-step, per lane (the canonical first-match rule of
-coders/huffman.py:246-254 / HuffmanCoder.hpp:584-613):
+Per symbol, per lane (the first-match rule of coders/huffman.py:246-254 /
+HuffmanCoder.hpp:584-613, restated on a 32-bit left-justified peek):
 
-    acc = acc*2 + bit; len += 1
-    complete = acc >= firstcode[len]          (32-way table select)
-    rank     = acc + (psl[len] - firstcode[len])
-    sym      = sym_table[rank]                (64-way select over 4-byte-
-                                               packed entries + shift)
+    l    = min{ l >= minlen : peek >= lj[l] }    5-step binary search
+    rank = (peek >> (32 - l)) + adj[l]           u32 wraparound
+    sym  = syms[rank]
 
-Completed symbols fold into 4-step output groups (4 steps complete at
-most 4 codes of 8 output bits = 32 bits, so one u32 token always holds a
-group); the groups stream to HBM as (value, nbits) token arrays and a
-second pass — the existing bit-pack kernel, pack_blocks_pallas — compacts
-them into the decoded byte arena. Both passes are lockstep Pallas; the
-only per-element XLA work is a transpose.
+lj[l] = firstcode[l] << (32 - l) is non-increasing in l for a complete
+prefix code (every Huffman code is), so the predicate is monotone and a
+binary search finds the first match. adj[l] = psl[l] - firstcode[l].
+Degenerate (flag-0) blocks are raw 8-bit literals: minlen = 8, lj = 0,
+identity symbol map.
 
-Degenerate (single-symbol / empty-alphabet) blocks decode through the
-same tables: raw 8-bit literals are exactly a canonical code with
-firstcode[8] = 0 and an identity symbol map.
+Four symbols fold into one u32 output word per lane and step; the output
+is laid out [step, lane] so a warp's stores are contiguous. The kernel
+writes the decoded bytes directly: no token stream, no second pack pass.
 
-Code lengths <= 31 are guaranteed by the encoder for blocks <= 2 MiB
-(ops/huffman_jax.py MAX_BLOCK).
+The per-block table headers (a few hundred bits each) are parsed on the
+host; the container's bytes go to the device once, as big-endian words.
+Code lengths <= 32 are required: blocks <= 2 MiB guarantee <= 31 for any
+Huffman code (ops/huffman_jax.py MAX_BLOCK, the Fibonacci bound).
 """
 
 from __future__ import annotations
@@ -43,240 +38,194 @@ import jax.numpy as jnp
 import numpy as np
 
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from ..io.bitio import BitReader
-from .bitpack import words_to_bytes
+from ..io.bitio import BitReader, valid_bit_count
 
-__all__ = [
-    "decode_payloads_bitserial",
-    "decode_payloads_batched",
-    "parse_payload_tables",
-]
+__all__ = ["container_lanes", "decode_container", "decode_lanes", "lane_tables"]
 
-LANES = 1024  # blocks per kernel invocation, laid out [8, 128]
-CHUNK_WORDS = 16  # stream words per grid step -> 512 bit-steps
+LANES = 32  # lanes (blocks) per program: one warp
+_HDR_BYTES = 512  # a serialized table is at most ~390 bytes
 
 
-def parse_payload_tables(payload: bytes):
-    """Host-side header parse -> decision tables + shifted symbol bits.
+def _parse_header(payload: bytes, byte_off: int):
+    """One payload's table -> (start, end, minlen, lj[32], adj[32], syms[256]).
 
-    Returns (fc[33] i32, adj[33] i32, sym4[64] i32, words u32[...],
-    total_bits). fc[l] is the smallest l-bit codeword value that
-    completes; adj[l] = psl[l] - fc[l] so rank = acc + adj[l]; sym4 packs
-    the rank->symbol map 4 bytes per word (little-endian within the word).
-    """
-    from ..coders.huffman import read_table
+    start/end are bit positions relative to the payload's enclosing word
+    (byte_off & 3 bytes of lead-in)."""
+    from ..coders.huffman import gen_first_codes
 
-    r = BitReader(payload)
-    INF = np.int32(2**31 - 1)
-    fc = np.full(33, INF, np.int32)
-    adj = np.zeros(33, np.int32)
-    syms = np.arange(256, dtype=np.int64)
+    r = BitReader(payload[:_HDR_BYTES])
+    lj = np.zeros(32, np.uint32)
+    adj = np.zeros(32, np.uint32)
     if r.read_bit():
-        t = read_table(r)
-        psl = np.zeros(t.longest, dtype=np.int64)
-        psl[t.ordered_codelengths[0] - 1] = 0
-        for i in range(1, t.alphabet_size):
-            if t.ordered_codelengths[i - 1] < t.ordered_codelengths[i]:
-                psl[t.ordered_codelengths[i] - 1] = i
-        for l in range(1, int(t.longest) + 1):
-            fc[l] = np.int32(t.firstcodes[l - 1])
-            adj[l] = np.int32(psl[l - 1] - int(t.firstcodes[l - 1]))
-        syms = np.zeros(256, np.int64)
-        syms[: t.alphabet_size] = t.ordered_map_from_effective
+        longest = r.read_compressed_int()
+        if longest > 32:
+            raise ValueError("device decode supports code lengths <= 32")
+        numl = np.array([r.read_compressed_int() for _ in range(longest)], np.int64)
+        sigma = r.read_compressed_int()
+        syms = np.zeros(256, np.uint8)
+        syms[:sigma] = r.read_ints(sigma, 8).astype(np.uint8)
+        fc = gen_first_codes(numl, longest).astype(np.int64)
+        psl = np.concatenate([[0], np.cumsum(numl)[:-1]])
+        ls = np.arange(1, longest + 1, dtype=np.int64)
+        lj[:longest] = (fc << (32 - ls)).astype(np.uint32)
+        adj[:longest] = ((psl - fc) & 0xFFFFFFFF).astype(np.uint32)
+        minlen = int(np.flatnonzero(numl)[0]) + 1
     else:
-        # degenerate: raw 8-bit literals == canonical len-8 identity code
-        fc[8] = 0
-        adj[8] = 0
-    sym4 = (
-        syms.reshape(64, 4) << (np.arange(4, dtype=np.int64) * 8)[None, :]
-    ).sum(axis=1).astype(np.int32)
-
-    hdr_bits = r.pos
-    total_bits = max(0, r._valid - hdr_bits)
-    # shift the symbol region down to bit 0 and view as MSB-first u32 words
-    data = np.frombuffer(payload, np.uint8)
-    byte0, sh = hdr_bits >> 3, hdr_bits & 7
-    a = data[byte0:].astype(np.uint16)
-    if sh:
-        nxt = np.concatenate([a[1:], np.zeros(1, np.uint16)])
-        a = ((a << sh) | (nxt >> (8 - sh))) & 0xFF
-    a = a.astype(np.uint8)
-    pad = (-len(a)) % 4
-    if pad:
-        a = np.concatenate([a, np.zeros(pad, np.uint8)])
-    words = a.view(">u4").astype(np.uint32)
-    return fc, adj, sym4, words, total_bits
+        syms = np.arange(256, dtype=np.uint8)
+        minlen = 8
+    lead = 8 * (byte_off & 3)
+    return lead + r.pos, lead + valid_bit_count(payload), minlen, lj, adj, syms
 
 
-def _bitserial_kernel(
-    words_ref, tb_ref, fc_ref, adj_ref, sym4_ref, outv_ref, outn_ref,
-    acc_ref, len_ref, *, chunk_words
+def lane_tables(payloads, offsets):
+    """Per-lane decode tables for payloads at the given container offsets,
+    padded to a multiple of LANES (padding lanes decode nothing)."""
+    n = len(payloads)
+    n_pad = max(LANES, -(-n // LANES) * LANES)
+    base = np.zeros(n_pad, np.int32)
+    start = np.zeros(n_pad, np.int32)
+    end = np.zeros(n_pad, np.int32)
+    minlen = np.full(n_pad, 32, np.int32)
+    lj = np.zeros((n_pad, 32), np.uint32)
+    adj = np.zeros((n_pad, 32), np.uint32)
+    syms = np.zeros((n_pad, 256), np.uint8)
+    for i, (p, off) in enumerate(zip(payloads, offsets)):
+        base[i] = off >> 2
+        start[i], end[i], minlen[i], lj[i], adj[i], syms[i] = _parse_header(p, off)
+    return base, start, end, minlen, lj, adj, syms
+
+
+def _decode_kernel(
+    words_ref, base_ref, start_ref, end_ref, minlen_ref, lj_ref, adj_ref,
+    syms_ref, out_ref, cnt_ref, pos_ref, *, n_words, n_steps
 ):
-    c = pl.program_id(0)
+    lane = pl.program_id(0) * LANES + jax.lax.iota(jnp.int32, LANES)
+    base = base_ref[...]
+    end = end_ref[...]
+    minlen = minlen_ref[...]
+    row32 = lane * 32
+    row256 = lane * 256
+    last_word = jnp.int32(n_words - 2)
 
-    @pl.when(c == 0)
-    def _():
-        acc_ref[...] = jnp.zeros(acc_ref.shape, jnp.int32)
-        len_ref[...] = jnp.zeros(len_ref.shape, jnp.int32)
+    def symbol(pos):
+        live = pos < end
+        wi = jnp.minimum(base + (pos >> 5), last_word)
+        sh = (pos & 31).astype(jnp.uint32)
+        hi = words_ref[wi]
+        lo = words_ref[wi + 1]
+        peek = (hi << sh) | jnp.where(
+            sh == 0, jnp.uint32(0), lo >> ((jnp.uint32(32) - sh) & 31)
+        )
+        # bits past the stream's end read as 0 (BitIStream.hpp:107)
+        rem = end - pos
+        peek = jnp.where(
+            rem < 32,
+            peek & ~(jnp.uint32(0xFFFFFFFF) >> jnp.clip(rem, 0, 31).astype(jnp.uint32)),
+            peek,
+        )
+        lo_l = minlen
+        hi_l = jnp.full_like(minlen, 32)
+        for _ in range(5):
+            mid = (lo_l + hi_l) >> 1
+            ok = peek >= lj_ref[row32 + mid - 1]
+            hi_l = jnp.where(ok, mid, hi_l)
+            lo_l = jnp.where(ok, lo_l, mid + 1)
+        ln = lo_l
+        v = peek >> (32 - ln).astype(jnp.uint32)
+        rank = jnp.minimum(v + adj_ref[row32 + ln - 1], jnp.uint32(255))
+        sym = syms_ref[row256 + rank.astype(jnp.int32)].astype(jnp.uint32)
+        return live, sym, jnp.where(live, pos + ln, pos)
 
-    # static-index table rows (unrolled compare-select accumulation:
-    # leading-dim reductions over [33/64, 8, 128] broadcasts lower
-    # pathologically in Mosaic — measured 37 us/bit-step; static rows
-    # keep everything in plain [8, 128] VPU ops)
-    fc_rows = [fc_ref[l] for l in range(1, 33)]
-    adj_rows = [adj_ref[l] for l in range(1, 33)]
-    sym_rows = [sym4_ref[j] for j in range(64)]
-    tb = tb_ref[0]  # [8,128] per-lane total symbol bits
-    base = c * (chunk_words * 32)
+    def body(j, carry):
+        pos, cnt = carry
+        word = jnp.zeros((LANES,), jnp.uint32)
+        for k in range(4):
+            live, sym, pos = symbol(pos)
+            word = word | jnp.where(live, sym << (8 * k), jnp.uint32(0))
+            cnt = cnt + live.astype(jnp.int32)
+        out_ref[j, :] = word
+        return pos, cnt
 
-    def body(w, carry):
-        acc, ln = carry
-        word = words_ref[w]  # [8,128] u32: bit column for all lanes
-        for g in range(8):  # 8 output groups of 4 bit-steps per word
-            v4 = jnp.zeros((8, 128), jnp.uint32)
-            n4 = jnp.zeros((8, 128), jnp.int32)
-            for k in range(4):
-                bpos = g * 4 + k
-                s = base + w * 32 + bpos
-                bit = ((word >> jnp.uint32(31 - bpos)) & 1).astype(jnp.int32)
-                live = s < tb
-                acc = jnp.where(live, acc * 2 + bit, acc)
-                ln = jnp.where(live, ln + 1, ln)
-                fc = jnp.zeros((8, 128), jnp.int32)
-                adj = jnp.zeros((8, 128), jnp.int32)
-                for l in range(32):
-                    hit = ln == (l + 1)
-                    fc = jnp.where(hit, fc_rows[l], fc)
-                    adj = jnp.where(hit, adj_rows[l], adj)
-                comp = live & (acc >= fc)
-                rank = jnp.clip(acc + adj, 0, 255)
-                r4 = rank >> 2
-                s4 = jnp.zeros((8, 128), jnp.int32)
-                for j in range(64):
-                    s4 = jnp.where(r4 == j, sym_rows[j], s4)
-                sym = (
-                    s4.astype(jnp.uint32) >> ((rank & 3) * 8).astype(jnp.uint32)
-                ) & jnp.uint32(0xFF)
-                v4 = jnp.where(comp, (v4 << jnp.uint32(8)) | sym, v4)
-                n4 = jnp.where(comp, n4 + 8, n4)
-                reset = comp | ~live
-                acc = jnp.where(reset, 0, acc)
-                ln = jnp.where(reset, 0, ln)
-            outv_ref[w * 8 + g] = v4
-            outn_ref[w * 8 + g] = n4
-        return acc, ln
-
-    acc, ln = jax.lax.fori_loop(
-        0, chunk_words, body, (acc_ref[...], len_ref[...])
+    pos, cnt = jax.lax.fori_loop(
+        0, n_steps, body, (start_ref[...], jnp.zeros((LANES,), jnp.int32))
     )
-    acc_ref[...] = acc
-    len_ref[...] = ln
+    cnt_ref[...] = cnt
+    pos_ref[...] = pos
 
 
-@partial(jax.jit, static_argnums=(2, 3))
-def _bitserial_pass(words, total_bits, n_chunks: int, interpret: bool = False):
-    """words [W, 8, 128] u32, total_bits [1, 8, 128] i32 ->
-    (v [S4, 8, 128] u32, nb [S4, 8, 128] i32) with S4 = n_chunks*128
-    4-step output groups."""
-    fc, adj, sym4, tb = total_bits  # packed by caller
-    S4 = n_chunks * CHUNK_WORDS * 8
-    return pl.pallas_call(
-        partial(_bitserial_kernel, chunk_words=CHUNK_WORDS),
-        grid=(n_chunks,),
-        in_specs=[
-            pl.BlockSpec(
-                (CHUNK_WORDS, 8, 128), lambda c: (c, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec((1, 8, 128), lambda c: (0, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((33, 8, 128), lambda c: (0, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((33, 8, 128), lambda c: (0, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((64, 8, 128), lambda c: (0, 0, 0), memory_space=pltpu.VMEM),
-        ],
+def _bswap32(w):
+    return (
+        (w << 24)
+        | ((w & 0xFF00) << 8)
+        | ((w >> 8) & 0xFF00)
+        | (w >> 24)
+    )
+
+
+@partial(jax.jit, static_argnames=("n_steps", "interpret"))
+def decode_lanes(words, base, start, end, minlen, lj, adj, syms, *, n_steps, interpret=False):
+    """Decode every lane's stream -> ([n_lanes, 4*n_steps] u8 symbols,
+    [n_lanes] i32 symbol counts, [n_lanes] i32 final bit positions).
+
+    words is the container's bytes viewed as native (little-endian) u32;
+    the byte swap to the MSB-first bit order runs here, on the device.
+    Tables come from lane_tables; n_steps*4 bounds the symbols per lane."""
+    words = _bswap32(words)
+    n_lanes = base.shape[0]
+    n_words = words.shape[0]
+    lane_spec = pl.BlockSpec((LANES,), lambda i: (i,))
+    whole = pl.no_block_spec  # gathered by per-lane index
+    out, cnt, pos = pl.pallas_call(
+        partial(_decode_kernel, n_words=n_words, n_steps=n_steps),
+        grid=(n_lanes // LANES,),
+        in_specs=[whole, lane_spec, lane_spec, lane_spec, lane_spec, whole, whole, whole],
         out_specs=(
-            pl.BlockSpec(
-                (CHUNK_WORDS * 8, 8, 128), lambda c: (c, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (CHUNK_WORDS * 8, 8, 128), lambda c: (c, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
+            pl.BlockSpec((n_steps, LANES), lambda i: (0, i)),
+            lane_spec,
+            lane_spec,
         ),
         out_shape=(
-            jax.ShapeDtypeStruct((S4, 8, 128), jnp.uint32),
-            jax.ShapeDtypeStruct((S4, 8, 128), jnp.int32),
+            jax.ShapeDtypeStruct((n_steps, n_lanes), jnp.uint32),
+            jax.ShapeDtypeStruct((n_lanes,), jnp.int32),
+            jax.ShapeDtypeStruct((n_lanes,), jnp.int32),
         ),
-        scratch_shapes=[
-            pltpu.VMEM((8, 128), jnp.int32),
-            pltpu.VMEM((8, 128), jnp.int32),
-        ],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=1, num_stages=1),
         interpret=interpret,
-    )(words, tb, fc, adj, sym4)
+        name="huffman_decode_lanes",
+    )(words, base, start, end, minlen, lj.reshape(-1), adj.reshape(-1), syms.reshape(-1))
+    out = jax.lax.bitcast_convert_type(out.T, jnp.uint8).reshape(n_lanes, 4 * n_steps)
+    return out, cnt, pos
 
 
-def decode_payloads_bitserial(
-    payloads: list, max_out: int, interpret: bool = None
-) -> list:
-    """Decode up to LANES encode(huff) payloads in one lockstep batch.
+def container_lanes(data: bytes):
+    """Host half of the decode: a TBK1 container -> (block_size, n_blocks,
+    decode_lanes arguments): the container as two-word-padded u32 words,
+    then the lane tables."""
+    from ..parallel.blocks import frame_offsets
 
-    Returns the decoded bytes per payload (each <= max_out)."""
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-    nb_real = len(payloads)
-    assert nb_real <= LANES, "split the container into <=1024-block batches"
-    parsed = [parse_payload_tables(p) for p in payloads]
+    block_size, offsets, lengths = frame_offsets(data)
+    mv = memoryview(data)
+    tables = lane_tables([mv[o : o + ln] for o, ln in zip(offsets, lengths)], offsets)
+    buf = np.zeros(-(-len(data) // 4) + 2, np.uint32)
+    buf.view(np.uint8)[: len(data)] = np.frombuffer(data, np.uint8)
+    return block_size, len(offsets), (buf, *tables)
 
-    W = max((len(t[3]) for t in parsed), default=1)
-    W = -(-max(W, 1) // CHUNK_WORDS) * CHUNK_WORDS
-    words = np.zeros((LANES, W), np.uint32)
-    fc = np.zeros((LANES, 33), np.int32)
-    adj = np.zeros((LANES, 33), np.int32)
-    sym4 = np.zeros((LANES, 64), np.int32)
-    tb = np.zeros(LANES, np.int32)
-    for i, (f, a, s4, w, t) in enumerate(parsed):
-        words[i, : len(w)] = w
-        fc[i] = f
-        adj[i] = a
-        sym4[i] = s4
-        tb[i] = t
-    n_chunks = W // CHUNK_WORDS
 
-    # lane layout: block i at [:, i // 128, i % 128]
-    d_words = jnp.asarray(words.T.reshape(W, 8, 128))
-    tables = (
-        jnp.asarray(fc.T.reshape(33, 8, 128)),
-        jnp.asarray(adj.T.reshape(33, 8, 128)),
-        jnp.asarray(sym4.T.reshape(64, 8, 128)),
-        jnp.asarray(tb.reshape(1, 8, 128)),
+def decode_container(data: bytes, interpret: bool = False) -> bytes:
+    """Decode a blockwise(encode(huff)) TBK1 container on the device."""
+    block_size, n, args = container_lanes(data)
+    out, cnt, pos = decode_lanes(
+        *args, n_steps=-(-block_size // 4), interpret=interpret
     )
-    v, nb = _bitserial_pass(d_words, tables, n_chunks, interpret)
-
-    # second pass: compact the (value, nbits) groups into the byte arena
-    from .bitpack_pallas import pack_blocks_pallas
-
-    S4 = v.shape[0]
-    vt = v.reshape(S4, LANES).T.astype(jnp.uint32)  # [LANES, S4]
-    nt = nb.reshape(S4, LANES).T
-    n_words_out = -(-max_out // 4)
-    arena, bits = pack_blocks_pallas(vt, nt, n_words_out, interpret)
-    arena = np.asarray(arena)
-    bits = np.asarray(bits)
-    out = []
-    for i in range(nb_real):
-        out.append(words_to_bytes(arena[i], int(bits[i])))
-    return out
-
-
-def decode_payloads_batched(payloads: list, max_out: int) -> list:
-    """Decode any number of payloads, chunked into LANES-sized lockstep
-    batches (the single entry point for both the blockwise compressor and
-    the parallel runtime)."""
-    out = []
-    for lo in range(0, len(payloads), LANES):
-        out.extend(
-            decode_payloads_bitserial(payloads[lo : lo + LANES], max_out)
-        )
-    return out
+    cnt = np.asarray(cnt)[:n]
+    end = args[3]
+    if (np.asarray(pos)[:n] < end[:n]).any():
+        raise ValueError("a block decodes to more than the container's block size")
+    out = np.asarray(out)[:n]
+    width = out.shape[1]
+    if n and (cnt[:-1] == width).all():
+        return out.reshape(-1)[: (n - 1) * width + int(cnt[-1])].tobytes()
+    return out[np.arange(width)[None, :] < cnt[:, None]].tobytes()

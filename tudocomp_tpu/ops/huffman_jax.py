@@ -1,4 +1,4 @@
-"""Device-side canonical Huffman: the flagship TPU encode pipeline.
+"""Device-side canonical Huffman: the flagship block encode pipeline.
 
 Jittable end-to-end block encoder producing byte streams identical to the
 host HuffmanCoder literal path (coders/huffman.py, format of
@@ -14,16 +14,16 @@ Pipeline stages, all vmapped over blocks [B, bs] u8:
                          (prefer leaves, FIFO internals), so lengths agree
                          bit-exactly with coders/huffman.py:gen_codelengths.
   3. canonical codes     firstcode reverse scan + (length, symbol) sort
-  4. tokenization        fixed [521 + bs] (value, nbits<=32) token slots
-  5. bit packing         ops.bitpack scatter arena
+  4. tokenization        per-symbol code lookup (gather) into fixed
+                         [521 + bs] (value, nbits<=32) token slots
+  5. bit packing         ops.bitpack scatter-add arena
 
 Block size is capped at 2 MiB: a depth-d code requires a block of at least
 Fibonacci(d+1) symbols, so bs <= 2^21 keeps code lengths <= 31 bits and
 every token within the 32-bit pack limit.
 
 Shared-table mode (for the multi-chip DP runtime): histograms are psum'd
-over the mesh axis so every block encodes with one global table — the
-"Huffman tables broadcast over ICI" design of BASELINE.json.
+over the mesh axis so every block encodes with one global table.
 """
 
 from __future__ import annotations
@@ -60,9 +60,8 @@ def _iota256():
 
 
 def _rd(A, idx):
-    """One-hot read A[idx] — a VPU select+reduce, not a gather (gathers and
-    scatters inside vmapped fori_loop bodies cost ~100us each on TPU and
-    dominated the whole pipeline; see the stage benchmarks)."""
+    """One-hot read A[idx]: a select+reduce over the 256 lanes, which
+    stays a fused elementwise op inside the vmapped fori_loop body."""
     return jnp.sum(jnp.where(_iota256() == idx, A, 0))
 
 
@@ -76,9 +75,8 @@ def _sort_hist(hist: jnp.ndarray):
 
     Sort-free: counts are < 2^22 (MAX_BLOCK), so (count << 9) | symbol is a
     unique i32 key and each symbol's sorted position is the number of
-    smaller keys — a [256, 256] comparison matrix, which the VPU eats for
-    breakfast, where a vmapped 256-element lax.sort took ~2 ms per block
-    on TPU."""
+    smaller keys — a [256, 256] comparison matrix in place of a vmapped
+    256-element sort per block."""
     hist = hist.astype(jnp.int32)
     present = hist > 0
     sigma = jnp.sum(present.astype(jnp.int32))
@@ -94,9 +92,7 @@ def _sort_hist(hist: jnp.ndarray):
 
 
 def _phase12_xla(sorted_key: jnp.ndarray, m):
-    """Moffat phases 1+2 as XLA loops with one-hot reads/writes (used on
-    CPU and for single histograms; the batched TPU path is the pallas
-    kernel in ops/pallas_kernels.py)."""
+    """Moffat phases 1+2 as XLA loops with one-hot reads/writes."""
     A_init = _wr(sorted_key, 0, sorted_key[0] + sorted_key[1])
 
     def p1_body(t, state):
@@ -145,8 +141,7 @@ def _phase3(A, sym_rank, sigma):
 
     sym_rank[s] = sorted position of symbol s (from _sort_hist); the final
     per-symbol assignment is a gather depth[sym_rank] — comparison sums and
-    gathers only, no scatters (vmapped scatter-max was a serialization
-    sink on TPU)."""
+    gathers only, no scatters."""
     m = sigma
     pos = jnp.arange(256, dtype=jnp.int32)
     internal = pos < m - 1
@@ -183,20 +178,35 @@ def code_lengths(hist: jnp.ndarray) -> jnp.ndarray:
     return _phase3(A, rank, sigma)
 
 
+def shared_code_lengths(hist: jnp.ndarray) -> jnp.ndarray:
+    """[256] histogram summed over many blocks -> [256] code lengths.
+
+    A summed histogram can exceed what one block holds, which would break
+    both the i32 sort keys of _sort_hist (counts < 2^22) and the 31-bit code
+    bound. The counts are shifted right by the least k that brings their
+    total (each present symbol kept >= 1) within MAX_BLOCK, which restores
+    both bounds; totals within MAX_BLOCK keep their exact counts. Totals
+    are summed in u32, so the input must stay below 4 GiB (and each count,
+    summed in i32 by the caller, below 2^31).
+    """
+    hist = hist.astype(jnp.uint32)
+    present = hist > 0
+    shifts = jnp.arange(32, dtype=jnp.uint32)
+    scaled = jnp.where(
+        present[None, :], jnp.maximum(hist[None, :] >> shifts[:, None], 1), 0
+    )  # [32 shifts, 256]
+    k = jnp.sum(jnp.sum(scaled, axis=1) > MAX_BLOCK)
+    return code_lengths_batch(scaled[k][None, :].astype(jnp.int32))[0]
+
+
 def code_lengths_batch(hists: jnp.ndarray) -> jnp.ndarray:
-    """[B, 256] histograms -> [B, 256] code lengths; pallas on TPU."""
+    """[B, 256] histograms -> [B, 256] code lengths."""
     # barrier: without it XLA fuses the histogram scatter into the [256,256]
-    # comparison broadcast and recomputes it per element (150ms instead of
-    # 1.5ms for the whole table stage)
+    # comparison broadcast and recomputes it per element
     hists = jax.lax.optimization_barrier(hists)
     keys, syms, sigmas, ranks = jax.vmap(_sort_hist)(hists)
     keys, sigmas, ranks = jax.lax.optimization_barrier((keys, sigmas, ranks))
-    if jax.default_backend() == "tpu":
-        from .pallas_kernels import moffat_phase12
-
-        A = moffat_phase12(keys, sigmas)
-    else:
-        A = jax.vmap(_phase12_xla)(keys, sigmas)
+    A = jax.vmap(_phase12_xla)(keys, sigmas)
     return jax.vmap(_phase3)(A, ranks, sigmas)
 
 
@@ -207,9 +217,7 @@ def canonical_codes_batch(lengths: jnp.ndarray):
 
     Same semantics as canonical_codes (HuffmanCoder.hpp:192-218), but every
     per-block scatter/gather is replaced by comparison-matrix sums and
-    one-hot reductions over the 256-lane dimension: a vmapped 256-slot
-    scatter costs ~2 ms/batch on TPU where the [B,256,256] compare+reduce
-    is ~100 us (see etc/probe2.py measurements).
+    one-hot reductions over the 256-lane dimension.
     """
     B = lengths.shape[0]
     lengths = lengths.astype(jnp.int32)
@@ -392,15 +400,11 @@ def _encode_one_block(block, n_valid, lengths, n_words, emit_table):
     )
 
 
-_LOOKUP_CHUNK = 1 << 15  # caps materialized one-hots at chunk*256 bytes/block
-
-
 def encode_blocks_from_lengths(blocks, n_valid, lengths, n_words, emit_table=True):
     """[B, bs] blocks + [B, 256] code lengths -> ([B, n_words] u32, [B] bits).
 
     The batched core of the encode pipeline: canonical codes (scatter-free),
-    per-symbol lookup (fused into the pack kernel on TPU, gather elsewhere),
-    table token serialization, bit-pack.
+    per-symbol lookup (gather), table token serialization, bit-pack.
     """
     cw, numl, ordered_sym, sigma, longest = canonical_codes_batch(lengths)
     cw, numl, ordered_sym, sigma, longest, lengths = jax.lax.optimization_barrier(
@@ -416,51 +420,8 @@ def _encode_with_tables(
     blocks, n_valid, lengths, cw, numl, ordered_sym, sigma, longest,
     n_words, emit_table=True,
 ):
-    B, bs = blocks.shape
+    bs = blocks.shape[1]
     normal = (sigma >= 2)[:, None]
-    if jax.default_backend() == "tpu":
-        # fused path: the per-block symbol table (canonical code for normal
-        # blocks, raw 8-bit identity for degenerate ones) rides into the
-        # pack kernel, which does lookup + pack in one pass. Only the tiny
-        # header token stream (<= 521 tokens/block) goes through the
-        # generic token pack. No [B, bs] token arrays ever touch HBM.
-        from .bitpack_pallas import pack_blocks_pallas, pack_bytes_blocks_pallas
-
-        iota = jax.lax.broadcasted_iota(jnp.int32, (1, 256), 1)
-        tbl_v = jnp.where(normal, cw.astype(jnp.int32), iota)
-        tbl_nb = jnp.where(normal, lengths, 8)
-        if emit_table:
-            tv, tb = jax.vmap(huffman_table_tokens)(
-                numl, ordered_sym, sigma, longest
-            )
-            hdr_nw = (32 * N_TABLE_TOKENS + 31) // 32
-            hdr_words, hdr_bits = pack_blocks_pallas(tv, tb, hdr_nw)
-        else:
-            hdr_words = jnp.zeros((B, 1), jnp.uint32)
-            hdr_bits = jnp.zeros((B,), jnp.int32)
-        # kernel-variant dispatch on the batch's longest code: when every
-        # code fits 8 (16) bits, 4 (2) adjacent bytes fold into one token,
-        # dividing scan/scatter work and grid steps by the pack factor
-        # (bit-identical output; see bitpack_pallas._pack_bytes_packed_kernel).
-        # lax.cond keeps the choice on device - no host sync in the stream.
-        maxlen = jnp.max(tbl_nb)
-        args = (blocks, n_valid, tbl_v, tbl_nb, hdr_words, hdr_bits)
-
-        def run(pack):
-            return lambda a: pack_bytes_blocks_pallas(*a, n_words, pack=pack)
-
-        return jax.lax.cond(
-            maxlen <= 4,
-            run(8),
-            lambda a: jax.lax.cond(
-                maxlen <= 8,
-                run(4),
-                lambda a2: jax.lax.cond(maxlen <= 16, run(2), run(1), a2),
-                a,
-            ),
-            args,
-        )
-
     c = blocks.astype(jnp.int32)
     pos = jnp.arange(bs, dtype=jnp.int32)
     live = pos[None, :] < n_valid[:, None]
@@ -482,46 +443,9 @@ def _encode_with_tables(
 def block_histograms(blocks, n_valid):
     """[B, bs] u8 + [B] valid counts -> [B, 256] i32 histograms.
 
-    On TPU: ones @ onehot MXU matmul (scatter-add histograms run at
-    ~0.09 GB/s vs ~0.5 GB/s for the matmul form; etc/probe2.py). The
-    valid-prefix mask rides the ones vector, so padding never needs a
-    separate pass. f32 accumulation is exact for counts < 2^24.
+    Scatter-add per block; the valid-prefix mask rides the increments.
     """
-    B, bs = blocks.shape
-    pos = jnp.arange(bs, dtype=jnp.int32)
-    if jax.default_backend() == "tpu":
-        iota = jax.lax.broadcasted_iota(jnp.int32, (1, 1, 256), 2)
-
-        def hist(args):  # ([B, c] u8, [B, c] bf16 live) -> [B, 256] f32
-            chunk, live = args
-            onehot = (chunk[:, :, None].astype(jnp.int32) == iota).astype(
-                jnp.bfloat16
-            )
-            return jnp.einsum(
-                "bi,bic->bc", live, onehot, preferred_element_type=jnp.float32
-            )
-
-        live = (pos[None, :] < n_valid[:, None]).astype(jnp.bfloat16)
-        if bs <= _LOOKUP_CHUNK:
-            h = hist((blocks, live))
-        else:
-            bsp = -(-bs // _LOOKUP_CHUNK) * _LOOKUP_CHUNK
-            if bsp != bs:
-                # pad to a chunk multiple; the padded tail is dead (live=0)
-                blocks = jnp.pad(blocks, ((0, 0), (0, bsp - bs)))
-                live = jnp.pad(live, ((0, 0), (0, bsp - bs)))
-            nc = bsp // _LOOKUP_CHUNK
-            h = jnp.sum(
-                jax.lax.map(
-                    hist,
-                    (
-                        blocks.reshape(B, nc, _LOOKUP_CHUNK).transpose(1, 0, 2),
-                        live.reshape(B, nc, _LOOKUP_CHUNK).transpose(1, 0, 2),
-                    ),
-                ),
-                axis=0,
-            )
-        return h.astype(jnp.int32)
+    pos = jnp.arange(blocks.shape[1], dtype=jnp.int32)
 
     def hist_of(block, nv):
         contrib = jnp.where(pos < nv, jnp.int32(1), jnp.int32(0))
@@ -534,20 +458,6 @@ def encode_blocks_with_hists(blocks, n_valid, hists, n_words, emit_table=True):
     """Encode blocks against given per-block histograms (tables derive from
     them; pass a broadcast psum'd histogram for the shared-table mode)."""
     assert blocks.shape[1] <= MAX_BLOCK, "block too large for 32-bit code tokens"
-    if jax.default_backend() == "tpu":
-        # the whole table stage (sort + Moffat + canonical) as one Pallas
-        # program — the XLA [B,256,256] comparison-matrix chain costs
-        # ~30 ms per 64 blocks where this kernel is sub-ms
-        from .pallas_kernels import huffman_tables_pallas
-
-        hists = jax.lax.optimization_barrier(hists)
-        lengths, cw, numl, ordered_sym, sigma, longest = huffman_tables_pallas(
-            hists
-        )
-        return _encode_with_tables(
-            blocks, n_valid, lengths, cw, numl, ordered_sym, sigma, longest,
-            n_words, emit_table,
-        )
     lengths = code_lengths_batch(hists)
     return encode_blocks_from_lengths(blocks, n_valid, lengths, n_words, emit_table)
 
@@ -565,9 +475,8 @@ def encode_blocks(blocks, n_valid, n_words, shared_table=False, emit_table=True)
     if shared_table:
         # one table from the global histogram: build it once and broadcast
         # the lengths (B identical Moffat solves would be pure waste)
-        shared = jnp.sum(hists, axis=0)
-        lengths = code_lengths_batch(shared[None, :])
-        lengths = jnp.broadcast_to(lengths[0], (blocks.shape[0], 256))
+        lengths = shared_code_lengths(jnp.sum(hists, axis=0))
+        lengths = jnp.broadcast_to(lengths, (blocks.shape[0], 256))
         return encode_blocks_from_lengths(
             blocks, n_valid, lengths, n_words, emit_table
         )

@@ -5,7 +5,7 @@ the text left to right and, per position, scans the suffix array for the
 previous/next smaller value (PSV/NSV) while folding the minimum LCP along
 the way — O(n^2) worst case. The host rebuild replaces the scans with O(n)
 monotone stacks (native tdc_lzss_lcp_factorize). This module is the
-TPU-parallel formulation (SURVEY.md §7 step 6):
+data-parallel device formulation (SURVEY.md §7 step 6):
 
   1. ANSV with min-LCP: pointer doubling over the "previous/next smaller"
      candidate chain — O(log n) rounds of two gathers, carrying the range
@@ -39,8 +39,8 @@ def ansv_minlcp(sa, lcp):
     smaller compact work arrays (n/2, n/8, n/32) whose rounds pay gathers
     only on live elements — same staged pattern as suffix_array_device.
     Chain shortcuts through resolved elements jump whole monotone runs, so
-    live counts fall geometrically on permutation-like SAs (gathers cost
-    ~9.5 ns/element on v5e, the dominant term — PERF.md).
+    live counts fall geometrically on permutation-like SAs (gathers are
+    the dominant term).
     """
     import jax
     import jax.numpy as jnp

@@ -10,7 +10,7 @@ unseen chars in identity order; matches mtf_encode_char,
 compressors/MTFCompressor.hpp:17-29).
 
 This turns MTF encode into last-occurrence cummax + rank reductions over a
-[block, 256] matrix — O(n*sigma) VPU work, tiled to stay in cache/VMEM. The
+[block, 256] matrix — O(n*sigma) elementwise work, tiled to stay in cache. The
 host version below (numpy) and the device version (tudocomp_tpu.ops.device)
 share this formulation. Decode is inherently sequential (table state); the
 host decoder uses a list-based exact simulation.

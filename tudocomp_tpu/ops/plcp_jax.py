@@ -4,8 +4,7 @@ Kärkkäinen's phi-algorithm (reference ds/PLCPFromPhi.hpp:38-44) is
 sequential: plcp[i] starts at plcp[i-1]-1, so the total number of character
 comparisons telescopes to O(n + max_lcp). A naive parallel version loses
 that amortization (every member of a repeat run grinds its own full lcp:
-O(n * avg_lcp) work — measured gathers at ~9.5 ns/element on v5e make that
-seconds).
+O(n * avg_lcp) work, seconds of gathers at text sizes).
 
 This formulation keeps the amortization: the text is cut into S segments;
 each segment is processed SEQUENTIALLY by one lane (preserving the

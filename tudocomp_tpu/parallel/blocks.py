@@ -1,10 +1,9 @@
 """Block partitioner + framed container format for block-parallel codecs.
 
 The reference is single-threaded and has no blocked mode; this is the new
-distributed dimension mandated by BASELINE.json ("inputs chunked into
-independent blocks sharded data-parallel across a multi-host TPU pod
-slice... ordered compressed streams gathered to the host"), designed per
-SURVEY.md §2.11.
+distributed dimension of BASELINE.json (inputs chunked into independent
+blocks sharded data-parallel across devices and hosts, ordered compressed
+streams gathered to the host), designed per SURVEY.md §2.11.
 
 Container layout (bit-exact, deterministic block order):
     magic "TBK1" | vbyte(block_size) | vbyte(n_blocks)
@@ -67,8 +66,8 @@ def frame_streams(payloads: list[bytes], block_size: int) -> bytes:
     return bytes(out)
 
 
-def unframe_streams(data: bytes):
-    """Parse a framed container -> (block_size, [payload bytes])."""
+def frame_offsets(data: bytes):
+    """Parse a framed container -> (block_size, [payload offset], [length])."""
     if data[:4] != MAGIC:
         raise ValueError("not a TBK1 block container")
     arr = np.frombuffer(data, dtype=np.uint8)
@@ -77,10 +76,19 @@ def unframe_streams(data: bytes):
     pos += used
     n_blocks, used = vbyte_decode_stream(arr, pos)
     pos += used
-    payloads = []
+    offsets, lengths = [], []
     for _ in range(n_blocks):
         ln, used = vbyte_decode_stream(arr, pos)
         pos += used
-        payloads.append(bytes(data[pos : pos + ln]))
+        if pos + ln > len(data):
+            raise ValueError("truncated TBK1 block container")
+        offsets.append(pos)
+        lengths.append(ln)
         pos += ln
-    return block_size, payloads
+    return block_size, offsets, lengths
+
+
+def unframe_streams(data: bytes):
+    """Parse a framed container -> (block_size, [payload bytes])."""
+    block_size, offsets, lengths = frame_offsets(data)
+    return block_size, [bytes(data[o : o + ln]) for o, ln in zip(offsets, lengths)]

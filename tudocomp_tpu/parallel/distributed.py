@@ -1,16 +1,16 @@
-"""Multi-host initialization and the pod-slice compression entry point.
+"""Multi-host initialization and the multi-host compression entry point.
 
-On a TPU pod slice each host runs the same program; `init_distributed()`
-wires jax.distributed (coordinator discovery through the standard TPU
-environment), after which `jax.devices()` spans the full slice and the
-block-parallel runtime in runtime.py shards over hosts x chips
-automatically — blocks stay host-local, only 256-entry histograms (psum
-over ICI) and per-block bit counts (gather) cross the interconnect, and
-host 0 assembles the deterministic TBK1 container.
+Each host runs the same program; `init_distributed()` wires
+jax.distributed from an explicit coordinator address, process count and
+id (arguments, or TDC_NUM_PROCESSES / TDC_PROCESS_ID / TDC_COORDINATOR),
+after which `jax.devices()` spans every host's cards and the
+block-parallel runtime in runtime.py shards over hosts x cards
+automatically — blocks stay host-local, only 256-entry histograms (psum)
+and per-block bit counts (gather) cross the interconnect, and host 0
+assembles the deterministic TBK1 container.
 
-Single-host and CPU-simulated runs skip initialization transparently, so
-the same code path serves 1 chip, 1 host, and N hosts (the scaling-report
-axes of BASELINE.json). Validated without hardware by
+Single-process runs skip initialization, so the same code path serves one
+card, one host and N hosts. Validated without hardware by
 __graft_entry__.dryrun_multichip (virtual device mesh).
 """
 
@@ -34,10 +34,6 @@ def init_distributed(coordinator_address: str | None = None,
             "TDC_COORDINATOR", "127.0.0.1:8476"
         )
     if num_processes is None or num_processes <= 1:
-        # TPU pod slices auto-discover via the TPU environment
-        if os.environ.get("TPU_WORKER_HOSTNAMES", "").count(",") > 0:
-            jax.distributed.initialize()
-            return True
         return False
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
@@ -49,7 +45,7 @@ def init_distributed(coordinator_address: str | None = None,
 
 def pod_compress(data: bytes, block_size: int = 1 << 18,
                  shared_table: bool = False, inner: str = "huff") -> bytes | None:
-    """Compress across the full slice; returns the container on process 0
+    """Compress across every process's devices; returns the container on process 0
     and None elsewhere (every process must call this collectively with the
     same data). inner selects the block pipeline: "huff" = encode(huff)
     over the device mesh, "lzss" = lzss_lcp(coder=huff) with per-process

@@ -2,14 +2,15 @@
 
 The distributed layer of the framework (SURVEY.md §2.11, BASELINE.json):
 blocks are sharded over the mesh's "dp" axis; shared entropy tables are
-formed by psum'ing per-device histograms over ICI; compressed word arenas
+formed by psum'ing per-device histograms over the interconnect; compressed
+word arenas
 and bit counts are gathered back in deterministic block order so the framed
 container is bit-exact regardless of device count.
 
-Single-host multi-chip uses one process; multi-host pods initialize
+Single-host multi-card uses one process; multi-host runs initialize
 jax.distributed and shard the global block array the same way (the dp axis
-spans hosts x chips; blocks stay host-local, only 256-entry histograms and
-per-block bit counts cross DCN).
+spans hosts x cards; blocks stay host-local, only 256-entry histograms and
+per-block bit counts cross hosts).
 """
 
 from __future__ import annotations
@@ -58,8 +59,8 @@ def make_block_encoder(mesh: Mesh, n_words: int, shared_table: bool = False):
             # solve the table once per device, broadcast lengths to blocks
             local = jnp.sum(hists, axis=0)
             glob = jax.lax.psum(local, "dp")
-            lengths = huffman_jax.code_lengths_batch(glob[None, :])
-            lengths = jnp.broadcast_to(lengths[0], (blocks.shape[0], 256))
+            lengths = huffman_jax.shared_code_lengths(glob)
+            lengths = jnp.broadcast_to(lengths, (blocks.shape[0], 256))
             return huffman_jax.encode_blocks_from_lengths(
                 blocks, n_valid, lengths, n_words, True
             )
@@ -100,7 +101,7 @@ def blockwise_huffman_compress(
 
     if jax.process_count() > 1:
         # multi-host: the output arrays are globally sharded; gather the
-        # ordered streams to every host over DCN (deterministic block
+        # ordered streams to every host (deterministic block
         # order keeps the container bit-exact for any process count)
         from jax.experimental import multihost_utils
 
@@ -129,7 +130,7 @@ def blockwise_lzss_compress(
     per-block pipeline (restriction wrap -> SA/ISA/LCP -> ANSV factorize ->
     lzss encode) with the device stages engaged by the standard use_device
     gates; with shared_table=True the literal histograms are summed across
-    every process (ICI/DCN all-gather) and one global Huffman table encodes
+    every process (all-gather) and one global Huffman table encodes
     all blocks (serialized per block, so streams stay standard-decodable);
     payloads are gathered in deterministic block order into the TBK1
     container — output bytes are identical for any process count.
@@ -244,17 +245,16 @@ def blockwise_lzss_compress(
 def blockwise_huffman_decompress(container: bytes, device: bool = False) -> bytes:
     """Decode the framed container (per-block huff decode).
 
-    device=True runs the bulk symbol decode through the bit-serial
-    lockstep Pallas kernel (ops/huffman_decode_pallas.py); host parses
-    only the per-block table headers.
+    device=True decodes one block per GPU thread (ops/huffman_decode_pallas.py);
+    the host parses only the per-block table headers.
     """
     from .blocks import unframe_streams
 
-    block_size, payloads = unframe_streams(container)
     if device:
-        from ..ops.huffman_decode_pallas import decode_payloads_batched
+        from ..ops.huffman_decode_pallas import decode_container
 
-        return b"".join(decode_payloads_batched(payloads, block_size))
+        return decode_container(container)
+    block_size, payloads = unframe_streams(container)
     from ..driver import decompress
 
     out = bytearray()

@@ -14,7 +14,7 @@ columns); plain runs skip it because tracemalloc, unlike the reference's
 near-free C override, taxes every allocation. Nested phases propagate their
 absolute peak to ancestors so a parent's memPeak covers its children even
 though tracemalloc has a single global peak counter. Device memory
-(jax device.memory_stats(), an RPC on tunneled setups) is opt-in via
+(jax device.memory_stats(), a device query per phase) is opt-in via
 StatPhase.track_device_memory / TDC_DEVICE_MEMSTATS=1 and reported as
 extra stats keys.
 """
